@@ -993,7 +993,7 @@ def _finish_cms_output(out_px, extra, bits, meta, orient):
 def decode_batch(streams, num_threads: int = 0):
     """Decode a list of codestreams, batching same-geometry all-DCT8
     streams into ONE vmapped device dispatch (tpu_codec.decode_tpu_batch
-    — the TPU serving path). Falls back to per-stream decode() when the
+    — the device serving path). Falls back to per-stream decode() when the
     batch is heterogeneous or device batching is unavailable. Returns a
     list of uint8 images in input order. Lists longer than one device
     batch run through the two-deep entropy/render pipeline

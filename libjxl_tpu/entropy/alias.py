@@ -2,8 +2,7 @@
 
 Mirrors InitAliasTable/AliasTable::Lookup (ans_common.cc:55-158,
 ans_common.h:61-135). Entries are stored as parallel NumPy arrays so bulk
-decode can gather over them; the same arrays feed the TPU Pallas decode
-kernel (gather + branchless renorm).
+decode can gather over them.
 """
 
 from __future__ import annotations

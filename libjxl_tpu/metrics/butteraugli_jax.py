@@ -4,13 +4,12 @@ Same model as the host comparator (butteraugli/butteraugli.cc): opsin
 dynamics, LF/MF/HF/UHF separation, 16-direction Malta filters, psycho
 masking and the half-res pass — expressed as one jit-able program so
 the effort>=7 quant-refinement loop's perceptual evaluation runs on the
-TPU instead of host NumPy. Constants and Malta tap patterns are shared
-with the host module (they ARE the model).
+device instead of host NumPy. Constants and Malta tap patterns are
+shared with the host module (they ARE the model).
 
 All control flow is static (sigmas, tap patterns, image shape), so the
-whole diffmap compiles to a single fused XLA program; the blurs are
-separable shift-add chains (TPU-friendly; 1-channel convs cannot tile
-onto the MXU).
+whole diffmap compiles to a single XLA program; the separable blurs
+are dense banded matrix products in full float32 (Precision.HIGHEST).
 """
 
 from __future__ import annotations
@@ -22,11 +21,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ..base.jaxenv import ensure_cpu_pin
-
-ensure_cpu_pin()
-
-from .butteraugli import (  # noqa: E402  (constants = the model)
+from .butteraugli import (  # constants = the model
     MALTA_FULL,
     MALTA_LF,
     NORM1_HF,
@@ -50,10 +45,10 @@ from .butteraugli import (  # noqa: E402  (constants = the model)
 @functools.lru_cache(maxsize=None)
 def _blur_matrix(n: int, sigma: float):
     """Row-normalized banded Gaussian as a dense (n, n) matrix: the
-    separable blur becomes TWO MATMULS (B_y @ img @ B_x^T) — MXU work
-    with a tiny compiled program, instead of a 33-tap unrolled shift
-    chain. Row normalization reproduces the host blur's border
-    renormalization exactly."""
+    separable blur becomes TWO MATMULS (B_y @ img @ B_x^T) with a tiny
+    compiled program, instead of a 33-tap unrolled shift chain. Row
+    normalization reproduces the host blur's border renormalization
+    exactly."""
     k = _gauss_kernel(sigma)
     r = len(k) // 2
     B = np.zeros((n, n), dtype=np.float64)

@@ -2,7 +2,7 @@
 multi-scale SSIM in XYB.
 
 PSNR mirrors extras/metrics.h ComputePSNR. The perceptual metrics are
-TPU-native reformulations in the spirit of butteraugli/butteraugli.h
+vectorized reformulations in the spirit of butteraugli/butteraugli.h
 (XYB opsin domain, multi-scale contrast masking) — NOT bit-identical to
 the reference model; they exist for encoder feedback loops and benchmark
 reporting. All heavy math is NumPy/JAX-vectorizable.

@@ -77,8 +77,8 @@ NUM_WP_PREDICTORS = 4
 class WeightedState:
     """weighted::State (context_predict.h:70-210). Strictly sequential in
     raster order (error-history feedback) — this is the known vectorization
-    obstacle (SURVEY.md section 3.4); the TPU/native paths only use it when
-    the tree demands it."""
+    obstacle (SURVEY.md section 3.4); the vectorized/native paths only use
+    it when the tree demands it."""
 
     def __init__(self, header: WeightedHeader, xsize: int, ysize: int):
         self.header = header

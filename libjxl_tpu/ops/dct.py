@@ -8,10 +8,10 @@ inverses. 2D transforms are separable; coefficient blocks of R x C
 transforms are stored in "wide" layout (rows = min(R,C), cols = max(R,C)),
 matching CoefficientLayout (ac_strategy.cc:20-27).
 
-Implemented as dense matrix products: on TPU these map directly onto the
-MXU (a 256-point DCT is a 256x256 matmul), which beats any split-radix
-schedule the reference hand-writes for CPU SIMD — the idiomatic TPU design
-per SURVEY.md section 7 item 4.
+Implemented as dense matrix products (a 256-point DCT is a 256x256
+matmul) that XLA hands to the accelerator's matrix units, in place of
+the split-radix schedule the reference hand-writes for CPU SIMD
+(SURVEY.md section 7 item 4).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""TPU compute pipelines for the VarDCT hot paths (JAX/XLA).
+"""Device compute pipelines for the VarDCT hot paths (JAX/XLA).
 
 This is where the reference's per-block Highway SIMD loops
 (dec_group.cc DequantBlock/TransformToPixels, enc_group.cc
-ComputeCoefficients) become batched MXU work: every 8x8 block in the
-image is one row of a big einsum against the DCT basis, and the
+ComputeCoefficients) become batched matrix products: every 8x8 block
+in the image is one row of a big einsum against the DCT basis, and the
 element-wise dequant/CfL/XYB stages fuse around it.
 
 Layouts:
@@ -21,10 +21,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-
-from ..base.jaxenv import ensure_cpu_pin
-
-ensure_cpu_pin()
 
 from ..io.headers import (
     DEFAULT_INVERSE_OPSIN_MATRIX,
@@ -66,12 +62,13 @@ def _consts():
 
 
 def idct8_blocks(blocks):
-    """Batched 8x8 IDCT: one 8x8 matmul pair per block (MXU).
+    """Batched 8x8 IDCT: one 8x8 matmul pair per block.
 
     Blocks are in the bitstream's transposed layout ([hfreq][vfreq],
     ComputeScaledDCT square convention) — the einsum untransposes for free.
-    Precision HIGHEST keeps the TPU MXU in 3-pass bf16 (~f32) mode — the
-    conformance error bounds (ISO 18181-3) do not survive plain bf16."""
+    Precision HIGHEST keeps the products in full float32 (no TF32 or
+    bf16 passes): the conformance error bounds (ISO 18181-3) do not
+    survive reduced-precision products."""
     k = _consts()
     return jnp.einsum("ru,...vu,cv->...rc", k["inv8"], blocks, k["inv8"],
                       precision=jax.lax.Precision.HIGHEST,
@@ -185,8 +182,7 @@ def _row_transform8(img, m):
     """Apply an 8x8 matrix within each 8-row band along H:
     out[c, 8b+r, x] = sum_u m[r, u] * img[c, 8b+u, x].
 
-    Keeps W (>= 2048 typical) as the minor dim — the TPU-friendly layout;
-    per-block (..., 8, 8) einsums waste 16x of every (8, 128) tile."""
+    Keeps W (>= 2048 typical) as the minor dim."""
     c, h, w = img.shape
     t = img.reshape(c, h // 8, 8, w)
     out = jnp.einsum("ru,cnuw->cnrw", m, t,
@@ -225,8 +221,8 @@ def decode_xyb_image(qimg, qf, dc, ytox_map, ytob_map, dm,
                      color_factor=84.0, base_x=0.0, base_b=1.0):
     """Image-layout decode compute path: qimg i32[3, H, W] holds each
     block's coefficients as an 8x8 tile (same bytes as the bitstream's
-    blocks, laid out in place). Numerically identical to decode_xyb but
-    ~10x faster on TPU (tile-friendly layouts)."""
+    blocks, laid out in place). Numerically identical to decode_xyb; the
+    wide layout needs no per-block reshapes between stages."""
     _, h, w = qimg.shape
     nby, nbx = h // 8, w // 8
     # fused per-position multiplier: dm[c, y%8, x%8] * scaled[y//8, x//8]
@@ -248,8 +244,8 @@ def decode_xyb_image(qimg, qf, dc, ytox_map, ytob_map, dm,
     dq_b = adjust_quant_bias_jax(qimg[2], 2) * mult[2] \
         * b_dm_mult + b_cc * dq_y
     coeffs = jnp.stack([dq_x, dq_y, dq_b])
-    # insert DC at block origins via mask-select: a stride-8 scatter
-    # (.at[::8, ::8].set) costs ~10x more than this elementwise where
+    # insert DC at block origins via an elementwise mask-select, which
+    # fuses with the dequant chain (a stride-8 scatter would not)
     dc_mask = ((jnp.arange(h) % 8 == 0)[:, None]
                & (jnp.arange(w) % 8 == 0)[None, :])
     dc_up = jnp.repeat(jnp.repeat(dc, 8, 1), 8, 2)
@@ -262,7 +258,7 @@ def special_matrix(strategy: int) -> np.ndarray:
     """(64, 64) f32: pixels_flat = M @ coeffs_flat for an 8x8-tile
     strategy (IDENTITY/DCT2X2/DCT4X4/DCT8X4/DCT4X8/AFV0-3 and DCT8).
     Every TransformToPixels case is linear, so the whole per-strategy
-    special-case code collapses to one MXU matmul on device."""
+    special-case code collapses to one matmul on device."""
     from ..vardct.transforms import transform_to_pixels
 
     m = np.zeros((64, 64), dtype=np.float64)
@@ -325,7 +321,7 @@ def decode_size_pass(qimg, qf_px, dc, ytox_px, ytob_px, dm_tile,
     (rows, cols), 16x16 .. 64x64. No gathers or scatters: every aligned
     tile of the grid is transformed and the caller mask-selects the
     pixels whose covering block really uses this size — trading a few
-    extra MXU passes for an XLA-fusable dense pipeline (the TPU-native
+    extra matmul passes for an XLA-fusable dense pipeline (a dense
     reformulation of dec_group.cc's per-block loop).
 
     qf_px/ytox_px/ytob_px: per-pixel f32 maps (constant within a tile by
@@ -382,7 +378,7 @@ def decode_render_image(qimg, qf, dc, ytox_map, ytob_map, dm,
                         pass0_sigma_scale=0.9, pass2_sigma_scale=6.5,
                         extra_tiles=None, dct8_mask=None, tile_shapes=None,
                         size_passes=None, size_shapes=None, class_map=None,
-                        true_size=None, use_pallas=True):
+                        true_size=None):
     """Full device decode on image-layout coefficients.
 
     size_passes: per-size dicts for the dense full-grid plain-DCT passes
@@ -449,8 +445,7 @@ def decode_render_image(qimg, qf, dc, ytox_map, ytob_map, dm,
         xyb = gaborish_jax(xyb, gab_kernels)
     if epf_iters > 0:
         xyb = epf_jax(xyb, inv_sigma_px, sad_mul, channel_scale, epf_iters,
-                      pass0_sigma_scale, pass2_sigma_scale,
-                      use_pallas=use_pallas)
+                      pass0_sigma_scale, pass2_sigma_scale)
     if to_rgb == "u8srgb":
         # full write stage on device: XYB -> linear RGB -> sRGB u8 HWC
         rgb = xyb_to_rgb_jax(xyb)
@@ -530,9 +525,8 @@ def decode_render_subsampled(qs, dcs, scaled_maps, dm, gab_kernels,
 def gaborish_jax(xyb, kernels):
     """Decoder-side 3x3 Gaborish blur, per-channel kernels (3, 3, 3).
 
-    Written as 9 shifted weighted adds (pure VPU elementwise, fused by
-    XLA) rather than a convolution: TPU convs with channel-count 1
-    cannot tile onto the MXU and run ~25x slower than this form."""
+    Written as 9 shifted weighted adds, which XLA fuses into one
+    elementwise kernel with the neighbouring stages."""
     k = jnp.asarray(kernels, dtype=xyb.dtype)
     h, w = xyb.shape[-2:]
     p = jnp.pad(xyb, ((0, 0), (1, 1), (1, 1)), mode="symmetric")
@@ -555,7 +549,15 @@ _EPF_MIN_SIGMA = -3.90524291751269967465540850526098
 def _epf_pass_jax(xyb, inv_sigma_px, sad_mul, channel_scale, neighbors,
                   sad_pattern, sigma_scale):
     """One EPF pass on device (stage_epf.cc Weight math). All shifts are
-    static slices of one padded array — XLA fuses the stencil."""
+    static slices of one padded array — XLA fuses the stencil. Traced
+    under the named scope "epf_pass" so profiles can attribute it."""
+    with jax.named_scope("epf_pass"):
+        return _epf_pass_body(xyb, inv_sigma_px, sad_mul, channel_scale,
+                              neighbors, sad_pattern, sigma_scale)
+
+
+def _epf_pass_body(xyb, inv_sigma_px, sad_mul, channel_scale, neighbors,
+                   sad_pattern, sigma_scale):
     pad = 4
     h, w = xyb.shape[-2:]
     p = jnp.pad(xyb, ((0, 0), (pad, pad), (pad, pad)), mode="symmetric")
@@ -595,43 +597,18 @@ def _epf_pass_jax(xyb, inv_sigma_px, sad_mul, channel_scale, neighbors,
     return jnp.where(skip[None], xyb, out)
 
 
-def _epf_pass_dispatch(xyb, inv_sigma_px, sad_mul, channel_scale,
-                       neighbors, sad_pattern, sigma_scale,
-                       use_pallas=True):
-    """Route one EPF pass to the Pallas stencil kernel on TPU (measured
-    1.8x faster than the XLA shift-add chain on v5e: explicit VMEM
-    strip tiling beats XLA's fusion for the 12-tap SAD stencil); the
-    XLA path remains the CPU/odd-shape fallback and the bit-exactness
-    reference. Pass use_pallas=False inside vmapped (multi-image)
-    programs — batched pallas_call lowering is unreliable at 2048px
-    widths on the current toolchain."""
-    _, h, w = xyb.shape
-    if (use_pallas and jax.default_backend() == "tpu"
-            and w % 128 == 0 and h % 8 == 0 and h >= 16):
-        from .pallas_kernels import epf_pass_pallas
-
-        return epf_pass_pallas(xyb, inv_sigma_px, sad_mul, channel_scale,
-                               neighbors, sad_pattern, sigma_scale)
-    return _epf_pass_jax(xyb, inv_sigma_px, sad_mul, channel_scale,
-                         neighbors, sad_pattern, sigma_scale)
-
-
 def epf_jax(xyb, inv_sigma_px, sad_mul, channel_scale, epf_iters,
-            pass0_sigma_scale=0.9, pass2_sigma_scale=6.5,
-            use_pallas=True):
+            pass0_sigma_scale=0.9, pass2_sigma_scale=6.5):
     """Edge-preserving filter chain on device (stage_epf.cc)."""
     if epf_iters == 3:
-        xyb = _epf_pass_dispatch(xyb, inv_sigma_px, sad_mul, channel_scale,
-                                 _EPF0_NEIGHBORS, _EPF_PLUS,
-                                 pass0_sigma_scale, use_pallas)
+        xyb = _epf_pass_jax(xyb, inv_sigma_px, sad_mul, channel_scale,
+                            _EPF0_NEIGHBORS, _EPF_PLUS, pass0_sigma_scale)
     if epf_iters >= 1:
-        xyb = _epf_pass_dispatch(xyb, inv_sigma_px, sad_mul, channel_scale,
-                                 _EPF12_NEIGHBORS, _EPF_PLUS, 1.0,
-                                 use_pallas)
+        xyb = _epf_pass_jax(xyb, inv_sigma_px, sad_mul, channel_scale,
+                            _EPF12_NEIGHBORS, _EPF_PLUS, 1.0)
     if epf_iters >= 2:
-        xyb = _epf_pass_dispatch(xyb, inv_sigma_px, sad_mul, channel_scale,
-                                 _EPF12_NEIGHBORS, None, pass2_sigma_scale,
-                                 use_pallas)
+        xyb = _epf_pass_jax(xyb, inv_sigma_px, sad_mul, channel_scale,
+                            _EPF12_NEIGHBORS, None, pass2_sigma_scale)
     return xyb
 
 
@@ -655,8 +632,7 @@ def decode_render(qcoeffs, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
 
 def gaborish_inverse_jax(xyb, kernel):
     """5x5 sharpen (GaborishInverse, enc_gaborish.cc:21-49) as 25
-    shifted weighted adds; kernel: f32[5, 5] (same for all channels).
-    Shift-add avoids the channel-1 conv path that can't use the MXU."""
+    shifted weighted adds; kernel: f32[5, 5] (same for all channels)."""
     k = np.asarray(kernel, dtype=np.float32)
     h, w = xyb.shape[-2:]
     p = jnp.pad(xyb, ((0, 0), (2, 2), (2, 2)), mode="symmetric")

@@ -1,8 +1,8 @@
 """XYB (opsin) color transform, forward and inverse.
 
 Mirrors enc_xyb.cc:43-106 (LinearRGBToXYB) and dec_xyb-inl.h:37-85
-(XybToRgb). Both NumPy and JAX versions; the JAX version is the TPU
-render-pipeline stage (pure elementwise VPU work, fused by XLA).
+(XybToRgb), in NumPy; the device render program's JAX versions live
+in ops/pipeline.py (rgb_to_xyb_jax, xyb_to_rgb_jax).
 """
 
 from __future__ import annotations
@@ -56,32 +56,6 @@ def xyb_to_linear_rgb(xyb: np.ndarray) -> np.ndarray:
     gb = b + cb
     mixed = np.stack([gr ** 3 - bias, gg ** 3 - bias, gb ** 3 - bias])
     return np.einsum("ij,j...->i...", _MINV.astype(dt), mixed)
-
-
-def make_jax_xyb():
-    """Returns (to_xyb, from_xyb) JAX functions over (3, H, W) arrays."""
-    import jax.numpy as jnp
-
-    m = jnp.asarray(_M, dtype=jnp.float32)
-    minv = jnp.asarray(_MINV, dtype=jnp.float32)
-    bias = jnp.float32(_BIAS)
-    cbrt_bias = jnp.float32(_CBRT_BIAS)
-
-    def to_xyb(rgb):
-        mixed = jnp.einsum("ij,j...->i...", m, rgb) + bias
-        mixed = jnp.maximum(mixed, 0.0)
-        cbrt = jnp.cbrt(mixed) - cbrt_bias
-        return jnp.stack([0.5 * (cbrt[0] - cbrt[1]),
-                          0.5 * (cbrt[0] + cbrt[1]), cbrt[2]])
-
-    def from_xyb(xyb):
-        gr = xyb[1] + xyb[0] + cbrt_bias
-        gg = xyb[1] - xyb[0] + cbrt_bias
-        gb = xyb[2] + cbrt_bias
-        mixed = jnp.stack([gr ** 3 - bias, gg ** 3 - bias, gb ** 3 - bias])
-        return jnp.einsum("ij,j...->i...", minv, mixed)
-
-    return to_xyb, from_xyb
 
 
 def srgb_to_linear(srgb: np.ndarray) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Multi-chip sharding of the codec compute path.
 
 The reference parallelizes over the 256x256 group grid with a fork-join
-thread pool (lib/jxl/base/data_parallel.h, enc_frame.cc:1382). The TPU
+thread pool (lib/jxl/base/data_parallel.h, enc_frame.cc:1382). This
 design shards the same grid over a jax.sharding.Mesh:
 
 - axis "batch": independent images/frames (data parallel),
@@ -11,43 +11,30 @@ design shards the same grid over a jax.sharding.Mesh:
   SaveBorders/LoadBorders strip machinery
   (low_memory_render_pipeline.h:52-53).
 
-All collectives ride ICI; entropy-coded bytes never touch the device.
+The halo exchanges are the only collectives (NCCL peer copies between
+GPUs); entropy-coded bytes never touch the device.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
-
-from ..base.jaxenv import ensure_cpu_pin
-
-ensure_cpu_pin()
-
 from jax.sharding import Mesh, PartitionSpec as P
 
-
-def _shard_map(f, mesh, in_specs, out_specs):
-    try:
-        return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=False)
-    except (AttributeError, TypeError):  # older jax
-        from jax.experimental.shard_map import shard_map as sm
-
-        return sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                  check_rep=False)
-
 from ..ops.pipeline import (
-    blocks_to_image,
     decode_pixels,
     encode_coefficients,
-    rgb_to_xyb_jax,
     xyb_to_rgb_jax,
 )
 from ..render.pipeline import gaborish_kernel
+
+
+def _shard_map(f, mesh, in_specs, out_specs):
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
+
 
 HALO = 3  # gaborish 1px + EPF up to 3px; 3 covers the round-1 chain
 
@@ -90,7 +77,8 @@ def _gaborish_local(xyb, weights):
         k = jnp.asarray(gaborish_kernel(*weights[c]), dtype=xyb.dtype)
         img = jnp.pad(xyb[c], ((0, 0), (1, 1)), mode="edge")  # x only
         out = jax.lax.conv_general_dilated(
-            img[None, None], k[None, None], (1, 1), "VALID")[0, 0]
+            img[None, None], k[None, None], (1, 1), "VALID",
+            precision=jax.lax.Precision.HIGHEST)[0, 0]
         outs.append(out)
     return jnp.stack(outs)
 
@@ -188,7 +176,7 @@ def build_sharded_decode_full(mesh: Mesh, epf_iters: int = 2):
     IDCT + Gaborish + EPF + XYB->RGB with ONE 4-row ppermute halo
     exchange feeding the whole filter chain (Gaborish 1px + EPF passes
     3px — the reference decoder's SaveBorders/LoadBorders strips,
-    low_memory_render_pipeline.h:52-53, as ICI collectives). Between
+    low_memory_render_pipeline.h:52-53, as collectives). Between
     stages, _edge_clamp_halo refreshes the halo rows on the image-edge
     strips so chained stages see per-stage edge replication.
 

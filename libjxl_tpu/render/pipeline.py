@@ -2,7 +2,7 @@
 
 Mirrors render_pipeline/stage_gaborish.cc and stage_epf.cc + epf.cc
 (ComputeSigma). Where the reference streams rows through per-stage border
-buffers (LowMemoryRenderPipeline), the TPU design runs whole-group tensors
+buffers (LowMemoryRenderPipeline), the device design runs whole-group tensors
 through XLA-fused convolutions; cross-group halos are exchanged with
 ppermute in libjxl_tpu.parallel.sharding.
 """
@@ -41,7 +41,7 @@ def _conv2d_np(img: np.ndarray, kern: np.ndarray) -> np.ndarray:
 
 
 def apply_gaborish(xyb, lf):
-    """Per-channel 3x3 blur with signaled weights (host path; the TPU
+    """Per-channel 3x3 blur with signaled weights (host path; the device
     path lives in parallel.sharding). C stencil (render_filters.c) when
     the native library is available, NumPy otherwise."""
     from ..native_ext import conv3x3_sym_native, get_lib
@@ -220,7 +220,7 @@ def mirror_fill_padding(xyb, ysize: int, xsize: int):
 
 def apply_restoration(xyb_np, fh, state):
     """NumPy-in/NumPy-out restoration used by the host decoder (no device
-    dependency; the TPU-resident variant lives in parallel.sharding)."""
+    dependency; the device-resident variant lives in parallel.sharding)."""
     lf = fh.loop_filter
     xyb = np.asarray(xyb_np, dtype=np.float64)
     fd = getattr(state, "fd", None)

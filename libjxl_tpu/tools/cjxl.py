@@ -12,7 +12,7 @@ import time
 
 def build_parser():
     p = argparse.ArgumentParser(
-        prog="cjxl", description="TPU-native JPEG XL encoder")
+        prog="cjxl", description="JAX-native JPEG XL encoder")
     p.add_argument("input", help="input image (png/pnm/npy/...)")
     p.add_argument("output", help="output .jxl file")
     p.add_argument("-d", "--distance", type=float, default=1.0,

@@ -9,7 +9,7 @@ import time
 
 def build_parser():
     p = argparse.ArgumentParser(
-        prog="djxl", description="TPU-native JPEG XL decoder")
+        prog="djxl", description="JAX-native JPEG XL decoder")
     p.add_argument("input", help="input .jxl file")
     p.add_argument("output", help="output image (png/pnm/npy)")
     p.add_argument("--display_nits", type=float, default=None,

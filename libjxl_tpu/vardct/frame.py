@@ -1093,7 +1093,7 @@ def decode_vardct_frame(r: BitReader, fh: FrameHeader,
                         extra_out: list = None, reference_extra=None,
                         render_fn=None, dc_frames=None,
                         runner=None, want_qimg: bool = False,
-                        num_threads: int = 0, ac_raw: bool = False):
+                        num_threads: int = 0):
     """Decode a VarDCT frame (header already read) -> (3, H, W) XYB-decoded
     linear RGB channels list (or the final XYB image if return_xyb).
 
@@ -1219,16 +1219,7 @@ def decode_vardct_frame(r: BitReader, fh: FrameHeader,
                              modular_ac_stream_id(fd, g, p))
 
     ac_bulk = None
-    if (ac_raw and not subsampled
-            and fh.nonserialized_metadata.m.num_extra_channels == 0):
-        # TPU entropy-decode path (ops/ans_tpu.py): capture the raw AC
-        # section byte ranges; the caller runs the device kernel. The
-        # caller MUST fall back to a full host decode if the kernel
-        # rejects the stream shape.
-        def ac_bulk(data, per_pass):
-            state.ac_raw = (data, per_pass)
-            return True
-    elif (not subsampled
+    if (not subsampled
             and fh.nonserialized_metadata.m.num_extra_channels == 0
             and (getattr(state, "want_qimg", False) or render_fn is None)):
         def ac_bulk(data, per_pass):
@@ -1408,57 +1399,54 @@ _INFO_LOSS_MUL = 320.0  # tuned: RD-dominates DCT8-only on noisy
 # content while leaving smooth-content merges untouched (see commit)
 
 
-_TILE_COST_JIT = None
-
-
-def _tile_cost_device(state, xyb, rows, cols, kind, tby, tbx):
-    """Device body of _batched_tile_cost: forward DCT of every candidate
-    tile, quantize, entropy-bits + 8-norm info-loss — one jitted program
-    per tile size; the opsin image transfers once per ACS search."""
-    global _TILE_COST_JIT
-    import functools as _ft
-
+def _tile_cost_program(x, dm_inv, dm, qf, igs, fr, fc, ir, ic, chan_mul,
+                       info_mul, rows, cols, tby, tbx):
+    """Device program of _tile_cost_device: forward DCT of every
+    rows x cols tile, quantize, entropy bits + 8-norm info loss."""
     import jax
     import jax.numpy as jnp
 
+    crop = x[:, :tby * rows, :tbx * cols]
+    tiles = crop.reshape(3, tby, rows, tbx, cols).transpose(0, 1, 3, 2, 4)
+    co = jnp.einsum("ur,ctmrk,vk->ctmuv", fr, tiles, fc,
+                    precision=jax.lax.Precision.HIGHEST,
+                    preferred_element_type=jnp.float32)
+    if rows >= cols:
+        co = jnp.swapaxes(co, -2, -1)
+    scaled = (igs / qf)[None, :, :, None, None]
+    qs = jnp.round(co * dm_inv[:, None, None] / scaled)
+    q = jnp.abs(qs)
+    nz = q > 0
+    bits = nz.sum(axis=(3, 4)) * 2.0 \
+        + jnp.where(nz, jnp.log2(1.0 + q), 0.0).sum(axis=(3, 4))
+    coded = dm_inv > 0
+    err = jnp.where(coded[:, None, None],
+                    (qs - co * dm_inv[:, None, None] / scaled)
+                    * dm[:, None, None] * scaled, 0.0)
+    e = jnp.swapaxes(err, -2, -1) if rows >= cols else err
+    pix = jnp.einsum("ru,ctmuv,kv->ctmrk", ir, e, ic,
+                     precision=jax.lax.Precision.HIGHEST,
+                     preferred_element_type=jnp.float32)
+    loss8 = (jnp.abs(pix) ** 8).sum(axis=(3, 4)) * chan_mul[:, None, None]
+    size = rows * cols
+    loss_scalar = (loss8.sum(axis=0) / size) ** 0.125 * size / (igs / qf)
+    return bits.sum(axis=0) + info_mul * loss_scalar + 24.0
+
+
+@functools.lru_cache(maxsize=1)
+def _tile_cost_jit():
+    import jax
+
+    return jax.jit(_tile_cost_program,
+                   static_argnames=("rows", "cols", "tby", "tbx"))
+
+
+def _tile_cost_device(state, xyb, rows, cols, kind, tby, tbx):
+    """Device body of _batched_tile_cost: one jitted program per tile
+    size; the opsin image transfers once per ACS search."""
     from ..ops.dct import fwd_matrix, inv_matrix
 
-    if _TILE_COST_JIT is None:
-        @_ft.partial(jax.jit,
-                     static_argnames=("rows", "cols", "tby", "tbx"))
-        def f(x, dm_inv, dm, qf, igs, fr, fc, ir, ic, chan_mul,
-              info_mul, rows, cols, tby, tbx):
-            crop = x[:, :tby * rows, :tbx * cols]
-            tiles = crop.reshape(3, tby, rows, tbx,
-                                 cols).transpose(0, 1, 3, 2, 4)
-            co = jnp.einsum("ur,ctmrk,vk->ctmuv", fr, tiles, fc,
-                            precision=jax.lax.Precision.HIGHEST,
-                            preferred_element_type=jnp.float32)
-            if rows >= cols:
-                co = jnp.swapaxes(co, -2, -1)
-            scaled = (igs / qf)[None, :, :, None, None]
-            qs = jnp.round(co * dm_inv[:, None, None] / scaled)
-            q = jnp.abs(qs)
-            nz = q > 0
-            bits = nz.sum(axis=(3, 4)) * 2.0 \
-                + jnp.where(nz, jnp.log2(1.0 + q), 0.0).sum(axis=(3, 4))
-            coded = dm_inv > 0
-            err = jnp.where(coded[:, None, None],
-                            (qs - co * dm_inv[:, None, None] / scaled)
-                            * dm[:, None, None] * scaled, 0.0)
-            e = jnp.swapaxes(err, -2, -1) if rows >= cols else err
-            pix = jnp.einsum("ru,ctmuv,kv->ctmrk", ir, e, ic,
-                             precision=jax.lax.Precision.HIGHEST,
-                             preferred_element_type=jnp.float32)
-            loss8 = (jnp.abs(pix) ** 8).sum(axis=(3, 4)) \
-                * chan_mul[:, None, None]
-            size = rows * cols
-            loss_scalar = (loss8.sum(axis=0) / size) ** 0.125 * size \
-                / (igs / qf)
-            return bits.sum(axis=0) + info_mul * loss_scalar + 24.0
-
-        _TILE_COST_JIT = f
-    f = _TILE_COST_JIT
+    f = _tile_cost_jit()
     cy, cx = rows // 8, cols // 8
     cache = getattr(state, "_xyb_dev", None)
     if cache is None or cache[0] is not xyb:
@@ -2212,7 +2200,8 @@ def encode_vardct_frame(writer: BitWriter, rgb_linear: np.ndarray,
             state.dc = xyb.reshape(
                 3, fd.ysize_blocks, 8, fd.xsize_blocks, 8).mean(axis=(2, 4))
         # quantize AC coefficients (vectorized over the whole block grid —
-        # mirrors enc_group.cc ComputeCoefficients, batched like the TPU path)
+        # mirrors enc_group.cc ComputeCoefficients, batched like the device
+        # path)
         inv_gs = state.quantizer.inv_global_scale
         nby, nbx = fd.ysize_blocks, fd.xsize_blocks
         kind = acs.QUANT_TABLE[acs.DCT]

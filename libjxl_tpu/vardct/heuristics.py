@@ -13,6 +13,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from .ctx import QUANT_MAX
@@ -145,16 +147,9 @@ def refine_quant_field(state, xyb_sharp: np.ndarray, xyb_orig: np.ndarray,
         # device proxy: trial quantize + dequant + IDCT + Gaborish + EPF
         # AND the butteraugli diffmap run as jitted programs per iter;
         # only the tiny per-block field update stays host-side
-        try:
-            _refine_device(state, co, dc, dm, dm_inv, inv_gs, gab, lf,
-                           xyb_orig, qf_float, target, iters, nby, nbx)
-            return
-        except Exception as e:  # remote-compile limits on big programs
-            import logging
-
-            logging.getLogger("libjxl_tpu.encode").warning(
-                "device quant refinement unavailable (%s: %.120s); "
-                "falling back to the host loop", type(e).__name__, e)
+        _refine_device(state, co, dc, dm, dm_inv, inv_gs, gab, lf,
+                       xyb_orig, qf_float, target, iters, nby, nbx)
+        return
     for _ in range(iters):
         scaled = (inv_gs / np.maximum(np.round(qf_float), 1.0))[
             None, :, :, None, None]
@@ -216,7 +211,38 @@ def _refine_ratio(berr: np.ndarray, target: float) -> np.ndarray:
     return np.where(berr < 0.4 * target, np.maximum(r, 0.8), ratio)
 
 
-_TRIAL_JIT = None
+def _trial_render(co_, dc_, qfr, dm_, dmi_, igs, i8, gabk, isp, sadk, cs,
+                  p0, p2, gab_on=True, epf_iters=0):
+    """Decoder's view of one trial quantization (device program of
+    _refine_device): quantize + dequant + IDCT8 + Gaborish + EPF, to
+    clipped linear RGB."""
+    import jax
+    import jax.numpy as jnp
+
+    from ..ops import pipeline as pl
+
+    scaled = (igs / qfr)[None, :, :, None, None]
+    q = jnp.round(co_ * dmi_[:, None, None] / scaled)
+    rec = q * dm_[:, None, None] * scaled
+    rec = rec.at[:, :, :, 0, 0].set(dc_)
+    # non-transposed (u, v) coefficient layout, same as the host
+    # proxy's forward transform
+    pix = jnp.einsum("ru,cnmuv,kv->cnmrk", i8, rec, i8,
+                     precision=jax.lax.Precision.HIGHEST,
+                     preferred_element_type=jnp.float32)
+    img = pl.blocks_to_image(pix)
+    if gab_on:
+        img = pl.gaborish_jax(img, gabk)
+    if epf_iters > 0:
+        img = pl.epf_jax(img, isp, sadk, cs, epf_iters, p0, p2)
+    return jnp.clip(pl.xyb_to_rgb_jax(img), 0.0, 1.0)
+
+
+@functools.lru_cache(maxsize=1)
+def _trial_jit():
+    import jax
+
+    return jax.jit(_trial_render, static_argnames=("gab_on", "epf_iters"))
 
 
 def _refine_device(state, co, dc, dm, dm_inv, inv_gs, gab, lf, xyb_orig,
@@ -224,44 +250,14 @@ def _refine_device(state, co, dc, dm, dm_inv, inv_gs, gab, lf, xyb_orig,
     """Device body of refine_quant_field: trial quantize + dequant +
     IDCT8 + Gaborish + EPF and the butteraugli diffmap run as jitted
     programs; only the per-block field update stays on host."""
-    global _TRIAL_JIT
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
     from ..metrics.butteraugli_jax import butteraugli_diffmap_jax
-    from ..ops import pipeline as pl
     from ..ops.dct import inv_matrix
     from ..ops.xyb import xyb_to_linear_rgb
     from ..render.pipeline import _sad_mul_map, compute_sigma
 
     h, w = nby * 8, nbx * 8
     epf_iters = int(lf.epf_iters)
-    if _TRIAL_JIT is None:
-        @functools.partial(jax.jit,
-                           static_argnames=("gab_on", "epf_iters"))
-        def trial(co_, dc_, qfr, dm_, dmi_, igs, i8, gabk, isp, sadk,
-                  cs, p0, p2, gab_on=True, epf_iters=0):
-            scaled = (igs / qfr)[None, :, :, None, None]
-            q = jnp.round(co_ * dmi_[:, None, None] / scaled)
-            rec = q * dm_[:, None, None] * scaled
-            rec = rec.at[:, :, :, 0, 0].set(dc_)
-            # non-transposed (u, v) coefficient layout, same as the
-            # host proxy's forward transform
-            pix = jnp.einsum("ru,cnmuv,kv->cnmrk", i8, rec, i8,
-                             precision=jax.lax.Precision.HIGHEST,
-                             preferred_element_type=jnp.float32)
-            img = pl.blocks_to_image(pix)
-            if gab_on:
-                img = pl.gaborish_jax(img, gabk)
-            if epf_iters > 0:
-                img = pl.epf_jax(img, isp, sadk, cs, epf_iters, p0, p2,
-                                 use_pallas=False)
-            return jnp.clip(pl.xyb_to_rgb_jax(img), 0.0, 1.0)
-
-        _TRIAL_JIT = trial
-    trial = _TRIAL_JIT
+    trial = _trial_jit()
     co32 = co.astype(np.float32)
     dc32 = dc.astype(np.float32)
     dm32 = dm.astype(np.float32)
@@ -296,9 +292,6 @@ def _refine_device(state, co, dc, dm, dm_inv, inv_gs, gab, lf, xyb_orig,
         np.round(qf_float), 1, QUANT_MAX).astype(np.int32)
 
 
-_DEVICE_DIFFMAP_BROKEN: list = []  # sticky remote-compile failure flag
-
-
 def _perceptual_diffmap(xyb_a: np.ndarray, xyb_b: np.ndarray) -> np.ndarray:
     """Diffmap for the quant-feedback loop: the faithful butteraugli
     model on images large enough for its frequency separation, else the
@@ -308,24 +301,6 @@ def _perceptual_diffmap(xyb_a: np.ndarray, xyb_b: np.ndarray) -> np.ndarray:
 
         lin_a = np.clip(xyb_to_linear_rgb(xyb_a), 0.0, 1.0)
         lin_b = np.clip(xyb_to_linear_rgb(xyb_b), 0.0, 1.0)
-        from ..api.tpu_codec import accelerator_available
-
-        if accelerator_available() and not _DEVICE_DIFFMAP_BROKEN:
-            # device comparator (metrics/butteraugli_jax.py): the whole
-            # diffmap — matmul blurs, Malta filters, masking — is one
-            # jitted program; matches the host model to ~2e-4 relative
-            try:
-                from ..metrics.butteraugli_jax import (
-                    butteraugli_diffmap_jax)
-
-                return np.asarray(butteraugli_diffmap_jax(lin_a, lin_b))
-            except Exception as e:  # remote-compile limits: sticky
-                import logging
-
-                _DEVICE_DIFFMAP_BROKEN.append(True)
-                logging.getLogger("libjxl_tpu.encode").warning(
-                    "device diffmap unavailable (%s: %.120s); host "
-                    "comparator from here on", type(e).__name__, e)
         from ..metrics.butteraugli import butteraugli_diffmap
 
         return butteraugli_diffmap(lin_a, lin_b)

@@ -2,8 +2,8 @@
 
 Mirrors dec_transforms-inl.h (TransformToPixels, LowestFrequenciesFromDC)
 and enc_transforms-inl.h (TransformFromPixels, DCFromLowestFrequencies).
-NumPy reference implementation; the batched TPU path for the hot sizes
-lives in libjxl_tpu.ops (MXU matmul DCTs).
+NumPy reference implementation; the batched device path for the hot
+sizes lives in libjxl_tpu.ops (matmul DCTs).
 
 Coefficient storage: wide layout (cy*8 rows, cx*8 cols with cx >= cy),
 flattened row-major into covered_blocks*64 floats; position [0..cx*cy) of

@@ -1,6 +1,6 @@
 /* Native hot loop: rANS symbol reading + modular channel decode.
  *
- * The TPU framework keeps entropy decoding on the host (it is bit-serial
+ * The framework keeps entropy decoding on the host (it is bit-serial
  * by construction); this C implementation replaces the Python inner loop
  * for WP-free trees, mirroring DecodeModularChannelMAANS
  * (lib/jxl/modular/encoding/encoding.cc:143-484) and

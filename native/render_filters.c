@@ -3,7 +3,7 @@
  * Covers the role of the reference's SIMD edge-preserving filter
  * (lib/jxl/epf.cc + render_pipeline/stage_epf.cc) and Gaborish stage
  * (stage_gaborish.cc) for the host decode path, with the same
- * restructured-SAD algorithm the TPU device pipeline uses
+ * restructured-SAD algorithm the device pipeline uses
  * (libjxl_tpu/parallel/sharding.py): every EPF pass is expressed over
  * symmetric neighbor PAIRS +/-(dy,dx).  For each pair one weighted
  * absolute-difference plane D(y,x) = sum_c cs[c]*|X_c(y,x) -

@@ -8,7 +8,7 @@
  * Entropy decode on the host is bit-serial by construction; this replaces
  * the Python token loop (vardct/frame.py decode_ac_group) so a whole 256px
  * group decodes in one C call. Parallel work (dequant/IDCT/filters) runs
- * on the TPU.
+ * on the device.
  *
  * Built together with modular_decode.c into _jxl_native.so (see
  * libjxl_tpu/native_ext.py). Plain C interface for ctypes.

@@ -1,19 +1,30 @@
-"""Test configuration: force an 8-device virtual CPU mesh.
+"""Test configuration: the suite runs on an 8-device virtual CPU mesh.
 
-Multi-chip TPU hardware is unavailable in CI; sharding tests run on a
-virtual 8-device CPU mesh per the project plan (SURVEY.md section 2.10).
-Must run before the first jax import.
+Sharding tests need several devices; XLA's host platform provides them
+as virtual devices (--xla_force_host_platform_device_count), so the
+mesh code is checked here against single-device references. Must run
+before the first jax import.
+
+Tests that need a GPU carry the `gpu` marker and skip on the CPU mesh;
+`python chip_smoke.py` runs them on the card (it selects the GPU
+platform before pytest imports this file).
 """
 
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-flags = os.environ.get("XLA_FLAGS", "")
-if "xla_force_host_platform_device_count" not in flags:
-    os.environ["XLA_FLAGS"] = (
-        flags + " --xla_force_host_platform_device_count=8"
-    ).strip()
+if os.environ["JAX_PLATFORMS"] == "cpu":
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=8"
+        ).strip()
 
-import jax  # noqa: E402
+    import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a GPU; skips on the CPU test mesh")

@@ -1,5 +1,5 @@
 """Batched device decode (api/tpu_codec.decode_tpu_batch): N distinct
-same-geometry streams rendered by one vmapped dispatch — the TPU
+same-geometry streams rendered by one vmapped dispatch — the device
 serving path the benchmark times."""
 
 import numpy as np
