@@ -16,12 +16,15 @@ Phases (one GPU), each checked against the host NumPy/C codec
      Butteraugli refinement), and the device Butteraugli diffmap
      against the host model on a 512x512 pair;
   e  every stream of tests/data/conformance through decode on the
-     device path, against the stored reference-decoder pixels.
+     device path, against the stored reference-decoder pixels (the
+     `gpu`-marked cases of tests/test_conformance_oracle.py, run here
+     with tests/test_gpu.py before the other phases).
 
 `--four` runs only the paths that span cards: a 64 MP image decoded
-strip-sharded over a 4-GPU ("rows",) mesh against the same strip
-program on one card and the whole-image render, and the batched render
-of 16 streams sharded over 4 cards against one card.
+strip-sharded over a 4-GPU ("rows",) mesh, bit-exact against the same
+strip program on one card and within the device/host bound of the
+whole-image render, and the batched render of 16 streams sharded over
+4 cards, bit-exact against one card.
 
 Earlier lines carry the card, versions and timings; the last line is
 one JSON object. The script exits non-zero, printing no result, when
@@ -43,7 +46,6 @@ import numpy as np
 N = 2048
 N_STREAMS = 32
 REPO = os.path.dirname(os.path.abspath(__file__))
-CORPUS = os.path.join(REPO, "tests", "data", "conformance")
 
 
 def log(msg):
@@ -272,63 +274,6 @@ def phase_d(img, ba_n, times):
     return s7
 
 
-def conformance_bounds(case):
-    """tests/test_conformance_oracle.py bounds (RMSE limit, peak limit)."""
-    dist = float(case.get("encode_args", {}).get("distance", 1.0))
-    if dist >= 4.0:
-        return 0.5 * dist, int(2 * dist)
-    if "noise" in case["name"]:
-        return 0.75, 2
-    return 0.2, 2
-
-
-def read_bytes(name):
-    with open(os.path.join(CORPUS, name), "rb") as f:
-        return f.read()
-
-
-def phase_e(times):
-    from libjxl_tpu.api import codestream
-    from libjxl_tpu.jpeg.recompress import reconstruct_jpeg
-
-    with open(os.path.join(CORPUS, "manifest.json")) as f:
-        cases = json.load(f)["cases"]
-    paths = {}
-    for rnd in ("cold", "warm"):
-        t0 = time.perf_counter()
-        for case in cases:
-            name = case["name"]
-            data = read_bytes(name + ".jxl")
-            info = {}
-            ours, _ = codestream.decode(data, device=True, decode_info=info)
-            paths[name] = info.get("path")
-            if case["kind"] == "jpeg_reconstruction":
-                assert info.get("path") == "device:u8-ycbcr", info
-                ref = codestream.decode(data, device=False)[0]
-                check_pixels(name, ours, ref)
-                assert reconstruct_jpeg(data) == read_bytes(name + ".jpg")
-                continue
-            ref = np.load(os.path.join(CORPUS, name + ".npy"))
-            nc = min(ours.shape[2], ref.shape[2])
-            assert ours.shape[:2] == ref.shape[:2], name
-            if case["kind"] == "lossless":
-                assert np.array_equal(ours[:, :, :nc], ref[:, :, :nc]), name
-                continue
-            d = (ours[:, :, :nc].astype(np.float64)
-                 - ref[:, :, :nc].astype(np.float64))
-            rmse, peak = float(np.sqrt((d ** 2).mean())), int(
-                np.abs(d).max())
-            limit, peak_limit = conformance_bounds(case)
-            assert rmse < limit and peak <= peak_limit, (name, rmse, peak)
-        times[f"e_{rnd}_s"] = time.perf_counter() - t0
-    on_device = sorted(k for k, v in paths.items()
-                       if str(v).startswith("device"))
-    log(f"phase e: {len(cases)} conformance streams within bounds, cold "
-        f"{times['e_cold_s']:.3f}s warm {times['e_warm_s']:.3f}s; "
-        f"{len(on_device)} rendered on device: "
-        + ", ".join(f"{k}={paths[k]}" for k in on_device))
-
-
 def gate_timings(times):
     """Device vs host single-stream decode around the 1 MP
     DEVICE_AUTO_MIN_PIXELS gate."""
@@ -350,17 +295,26 @@ def gate_timings(times):
 
 
 def run_gpu_tests():
-    """The suite's `gpu`-marked tests, in this process on the card."""
+    """The suite's `gpu`-marked tests, in this process on the card:
+    tests/test_gpu.py, then phase e, the conformance corpus decoded on
+    the device path against its stored reference pixels (the bounds of
+    tests/test_conformance_oracle.py), cold and warm."""
     import pytest
 
     # tests/conftest.py pins the CPU mesh unless a platform is chosen
     os.environ["JAX_PLATFORMS"] = "cuda"
-    t0 = time.perf_counter()
-    rc = pytest.main(["-q", "-p", "no:cacheprovider", "-m", "gpu",
-                      os.path.join(REPO, "tests", "test_gpu.py")])
-    log(f"gpu-marked tests: exit {int(rc)} in "
-        f"{time.perf_counter() - t0:.1f}s")
-    assert rc == 0, f"gpu-marked tests failed (pytest exit {int(rc)})"
+    times = {}
+    for key, name in (("gpu_tests", "test_gpu.py"),
+                      ("e_cold", "test_conformance_oracle.py"),
+                      ("e_warm", "test_conformance_oracle.py")):
+        t0 = time.perf_counter()
+        rc = pytest.main(["-q", "-p", "no:cacheprovider", "-m", "gpu",
+                          os.path.join(REPO, "tests", name)])
+        times[f"{key}_s"] = time.perf_counter() - t0
+        log(f"{key}: gpu-marked tests of {name} exit {int(rc)} in "
+            f"{times[f'{key}_s']:.1f}s")
+        assert rc == 0, f"{name}: gpu-marked tests failed (exit {int(rc)})"
+    return times
 
 
 def run_one_card(n=N, count=N_STREAMS, ba_n=512):
@@ -371,22 +325,21 @@ def run_one_card(n=N, count=N_STREAMS, ba_n=512):
     s7 = phase_d(imgs[0], ba_n, times)
     phase_c(n, streams[0], s7, times)
     del imgs
-    phase_e(times)
     gate_timings(times)
-    log(f"phases a-e done in {time.perf_counter() - t0:.1f}s")
+    log(f"phases a-d done in {time.perf_counter() - t0:.1f}s")
     return times
 
 
 # -------------------------------------------------------------- four cards
 def run_four(devices, big_mp=64.0, n_batch=16, batch_n=N):
     import jax
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from jax.sharding import Mesh
 
     import __graft_entry__ as graft
     from libjxl_tpu.api import codestream
     from libjxl_tpu.api.tpu_codec import (decode_tpu_batch,
                                           decode_tpu_batch_sharded,
-                                          prepare_tpu_batch)
+                                          place_batch, prepare_tpu_batch)
 
     nd = len(devices)
     rows_mesh = Mesh(np.array(devices), ("rows",))
@@ -401,23 +354,19 @@ def run_four(devices, big_mp=64.0, n_batch=16, batch_n=N):
     mesh = Mesh(np.array(devices), ("batch",))
     shd = decode_tpu_batch_sharded(streams, mesh=mesh)
     shd, t_shd = timed(decode_tpu_batch_sharded, streams, mesh=mesh)
-    exact = all(np.array_equal(a, b) for a, b in zip(one, shd))
-    for a, b in zip(shd, one):
-        check_pixels("batch sharded", a, b)
+    # each card runs the same per-image program: bit-exact
+    for i, (a, b) in enumerate(zip(shd, one)):
+        assert np.array_equal(a, b), ("batch sharded", i, int(np.abs(
+            a.astype(np.int16) - b.astype(np.int16)).max()))
     # the render alone, inputs resident: one card vs the batch axis
     # split over all cards (as decode_tpu_batch_sharded places it)
     prog, args = prepare_tpu_batch(streams)
-    batched = NamedSharding(mesh, P("batch"))
-    repl = NamedSharding(mesh, P())
     r1 = render_time(prog, jax.device_put(args, devices[0]))
-    rn = render_time(prog, tuple(
-        jax.device_put(a, batched if i < 7 else repl)
-        for i, a in enumerate(args)))
+    rn = render_time(prog, place_batch(args, mesh))
     log(f"four: decode_tpu_batch_sharded {n_batch} x {batch_n}^2 over "
         f"{nd} cards {t_shd:.3f}s vs decode_tpu_batch on one card "
         f"{t_one:.3f}s (both incl. host entropy); render alone "
-        f"{rn:.4f}s on {nd} cards vs {r1:.4f}s on one; pixel-exact "
-        f"{exact}")
+        f"{rn:.4f}s on {nd} cards vs {r1:.4f}s on one; pixel-exact")
 
 
 def render_time(prog, dev_args, reps=3):
@@ -478,8 +427,8 @@ def main(argv=None):
         devices = devices[:4]
         run_four(devices)
     else:
-        run_gpu_tests()
-        times = run_one_card()
+        times = run_gpu_tests()
+        times.update(run_one_card())
         log("times " + json.dumps(times, sort_keys=True))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"ok": True, "device": {

@@ -229,7 +229,10 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
     (modular sub-streams, enc_modular.cc do_color=false path).
     photon_noise_iso: if set, signal synthetic photon noise (kNoise flag).
     icc: optional raw ICC profile to embed (signals want_icc; the pixel
-    data is still XYB-coded, the profile describes the decode target)."""
+    data is still XYB-coded, the profile describes the decode target).
+    device: run the pixel programs and search heuristics on the JAX
+    device (True) or on the host (False); None picks the device when
+    JAX has a GPU (for the e3 encoder, at >= DEVICE_AUTO_MIN_PIXELS)."""
     from ..io.frame_header import (
         FLAG_NOISE,
         FLAG_SKIP_ADAPTIVE_DC_SMOOTHING,
@@ -246,12 +249,13 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
     # inverse Gaborish, DCT, CfL, quantize) runs as one XLA program and
     # only entropy coding stays on host (enc_group.cc SIMD loops vs
     # enc_ans.cc split)
+    encode_on_device = device
     if device is None:
         from .tpu_codec import device_worthwhile
 
-        device = device_worthwhile(
+        encode_on_device = device_worthwhile(
             int(image.shape[0]) * int(image.shape[1]))
-    if (device and effort <= 3 and distance > 0
+    if (encode_on_device and effort <= 3 and distance > 0
             and image.ndim == 3 and image.shape[2] == 3
             and image.dtype == np.uint8
             and icc is None and photon_noise_iso is None and not noise
@@ -503,7 +507,7 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
                         ctx_model=effort >= 6,
                         effort=effort,
                         dc_distance=public_distance,
-                        debug_cb=debug_cb)
+                        debug_cb=debug_cb, device=device)
     if stats is not None:
         from .stats import collect_stats
 

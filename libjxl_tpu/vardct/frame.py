@@ -213,6 +213,9 @@ class VarDCTState:
         # reference's render pipeline (dec_group.cc / Image3F)
         self.xyb = None if not alloc_xyb else np.zeros(
             (3, fd.ysize_padded, fd.xsize_padded), dtype=np.float32)
+        # encoder: run the search heuristics as device programs (None:
+        # whenever JAX has a GPU; heuristics.heuristics_on_device)
+        self.device = None
         self.x_dm_mult = (1 / 1.25) ** (fh.x_qm_scale - 2.0)
         self.b_dm_mult = (1 / 1.25) ** (fh.b_qm_scale - 2.0)
         # modular substream codec state (global tree)
@@ -1488,9 +1491,9 @@ def _batched_tile_cost(state: VarDCTState, xyb: np.ndarray, rows: int,
     tby, tbx = nby // cy, nbx // cx
     if tby == 0 or tbx == 0:
         return np.full((tby, tbx), np.inf)
-    from ..api.tpu_codec import accelerator_available
+    from .heuristics import heuristics_on_device
 
-    if accelerator_available():
+    if heuristics_on_device(state):
         return _tile_cost_device(state, xyb, rows, cols, kind, tby, tbx)
     crop = xyb[:, :tby * rows, :tbx * cols].astype(np.float32)
     tiles = crop.reshape(3, tby, rows, tbx, cols).transpose(0, 1, 3, 2, 4)
@@ -1913,13 +1916,15 @@ def encode_vardct_frame(writer: BitWriter, rgb_linear: np.ndarray,
                         dc_distance: float = None,
                         group_order: int = 0,
                         center_x: int = None, center_y: int = None,
-                        debug_cb=None) -> None:
+                        debug_cb=None, device: bool = None) -> None:
     """Encode (3, H, W) linear RGB as a VarDCT frame (DCT8 strategy).
 
     Heuristics (vardct/heuristics.py): inverse Gaborish when the frame
     header enables the decoder-side blur, per-block adaptive quant field,
     per-tile chroma-from-luma fit — the round-1 subset of
-    LossyFrameHeuristics (enc_heuristics.cc:1011-1206)."""
+    LossyFrameHeuristics (enc_heuristics.cc:1011-1206). `device` puts
+    the AC-strategy tile costs and the Butteraugli refinement on the
+    JAX device (True) or the host (False); None: on a GPU."""
     from ..api.frame import num_toc_entries
     from ..io.toc import write_group_offsets
     from ..ops.xyb import linear_rgb_to_xyb
@@ -1927,6 +1932,7 @@ def encode_vardct_frame(writer: BitWriter, rgb_linear: np.ndarray,
 
     fd = fh.frame_dimensions()
     state = VarDCTState(fh, fd)
+    state.device = device
     if custom_quant:
         # signaled (non-library) dequant matrices (enc_quant_weights.cc)
         for kind, entry in custom_quant.items():

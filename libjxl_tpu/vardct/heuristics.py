@@ -95,6 +95,16 @@ def epf_sharpness_field(y: np.ndarray, nby: int, nbx: int) -> np.ndarray:
     return np.full((nby, nbx), 4, dtype=np.int32)
 
 
+def heuristics_on_device(state) -> bool:
+    """Whether the encoder's tile costs and Butteraugli refinement run
+    as device programs: the caller's `device` choice, else a GPU."""
+    if state.device is None:
+        from ..api.tpu_codec import accelerator_available
+
+        return accelerator_available()
+    return bool(state.device)
+
+
 def refine_quant_field(state, xyb_sharp: np.ndarray, xyb_orig: np.ndarray,
                        distance: float, iters: int = 2) -> None:
     """Butteraugli-feedback quant refinement (FindBestQuantization,
@@ -141,9 +151,7 @@ def refine_quant_field(state, xyb_sharp: np.ndarray, xyb_orig: np.ndarray,
     # doc/encode_effort.md)
     target = max(distance, 0.05) * 1.4
     qf_float = state.raw_quant_field.astype(np.float64)
-    from ..api.tpu_codec import accelerator_available
-
-    if accelerator_available() and min(nby * 8, nbx * 8) >= 32:
+    if heuristics_on_device(state) and min(nby * 8, nbx * 8) >= 32:
         # device proxy: trial quantize + dequant + IDCT + Gaborish + EPF
         # AND the butteraugli diffmap run as jitted programs per iter;
         # only the tiny per-block field update stays host-side

@@ -12,6 +12,8 @@ platform before pytest imports this file).
 
 import os
 
+import pytest
+
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 if os.environ["JAX_PLATFORMS"] == "cpu":
     flags = os.environ.get("XLA_FLAGS", "")
@@ -28,3 +30,13 @@ if os.environ["JAX_PLATFORMS"] == "cpu":
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "gpu: needs a GPU; skips on the CPU test mesh")
+
+
+@pytest.fixture
+def gpu():
+    """Skips the test unless JAX's backend is a GPU."""
+    import jax
+
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU (JAX backend is "
+                    f"{jax.default_backend()!r})")

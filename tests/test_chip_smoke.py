@@ -30,10 +30,14 @@ def test_refuses_the_cpu_backend():
 
 
 def test_fails_without_the_repo(tmp_path):
+    """Alone in a directory the script stops at the missing package,
+    before it asks JAX for a backend."""
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
     out = _run(str(tmp_path), "chip_smoke.py")
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+    assert "No module named 'libjxl_tpu'" in out.stderr
+    assert "not 'gpu'" not in out.stdout
 
 
 @pytest.fixture
@@ -46,7 +50,7 @@ def device_routing(monkeypatch):
 def test_one_card_phases_at_tiny_size(device_routing):
     times = chip_smoke.run_one_card(n=128, count=3, ba_n=64)
     for key in ("a_cold_s", "b_warm_s", "c_e7_warm_s", "d_warm_s",
-                "e_warm_s", "gate_1024"):
+                "gate_1024"):
         assert key in times, key
 
 

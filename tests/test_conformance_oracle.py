@@ -30,13 +30,11 @@ PIXEL_CASES = [c for c in MANIFEST["cases"]
                if c["kind"] in ("lossless", "lossy")]
 
 
-@pytest.mark.parametrize("case", PIXEL_CASES,
-                         ids=[c["name"] for c in PIXEL_CASES])
-def test_conformance_case(case):
+def _check_case(case, device=None):
     with open(os.path.join(CORPUS, case["name"] + ".jxl"), "rb") as f:
         data = f.read()
     ref = np.load(os.path.join(CORPUS, case["name"] + ".npy"))
-    ours, _ = codestream.decode(data)
+    ours, _ = codestream.decode(data, device=device)
     nc = min(ours.shape[2], ref.shape[2])
     assert ours.shape[:2] == ref.shape[:2]
     if case["kind"] == "lossless":
@@ -62,6 +60,21 @@ def test_conformance_case(case):
     assert rmse < limit, (case["name"], rmse, "gen", case["gen_rmse"])
     assert peak <= peak_limit, (case["name"], peak, "gen",
                                 case["gen_peak"])
+
+
+@pytest.mark.parametrize("case", PIXEL_CASES,
+                         ids=[c["name"] for c in PIXEL_CASES])
+def test_conformance_case(case):
+    _check_case(case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PIXEL_CASES,
+                         ids=[c["name"] for c in PIXEL_CASES])
+def test_conformance_case_on_device(gpu, case):
+    """The same bounds with every stream asked onto the device path
+    (streams outside its format scope are refused to the host)."""
+    _check_case(case, device=True)
 
 
 def test_jpeg_reconstruction_case():
@@ -102,3 +115,18 @@ def test_jpeg_recon_pixel_decode():
     # two independent JPEG decoders (ours via the VarDCT transcode,
     # PIL's libjpeg): differences are IDCT/upsampling rounding only
     assert d.mean() < 2.0 and d.max() <= 32, (d.mean(), d.max())
+
+
+@pytest.mark.gpu
+def test_jpeg_recon_renders_on_device(gpu):
+    """The JPEG-recompressed stream takes the device YCbCr program and
+    agrees with the host decoder within float32 rounding."""
+    with open(os.path.join(CORPUS, "jpeg_recon.jxl"), "rb") as f:
+        data = f.read()
+    info = {}
+    dev, _ = codestream.decode(data, device=True, decode_info=info)
+    assert info["path"] == "device:u8-ycbcr", info
+    host, _ = codestream.decode(data, device=False)
+    d = np.abs(dev[:, :, :3].astype(int) - host[:, :, :3].astype(int))
+    assert d.max() <= 1 and (d != 0).mean() < 1e-3, (d.max(),
+                                                     (d != 0).mean())

@@ -24,24 +24,29 @@ def _boom(*a, **k):
     raise RuntimeError("forced device failure")
 
 
-@pytest.fixture
-def on_device(monkeypatch):
-    """Route the encoder's heuristics to their device programs."""
-    monkeypatch.setattr(tpu_codec, "accelerator_available", lambda: True)
-
-
-def test_refinement_failure_propagates(on_device, monkeypatch):
+def test_refinement_failure_propagates(monkeypatch):
     monkeypatch.setattr(heuristics, "_trial_jit", lambda: _boom)
     with pytest.raises(RuntimeError, match="forced device failure"):
         codestream.encode_lossy(_image(64, 64), distance=1.0, effort=7,
-                                device=False)
+                                device=True)
 
 
-def test_tile_cost_failure_propagates(on_device, monkeypatch):
+def test_tile_cost_failure_propagates(monkeypatch):
     monkeypatch.setattr(vf, "_tile_cost_jit", lambda: _boom)
     with pytest.raises(RuntimeError, match="forced device failure"):
         codestream.encode_lossy(_image(64, 64), distance=1.0, effort=7,
-                                device=False)
+                                device=True)
+
+
+def test_host_encode_leaves_the_device_alone(monkeypatch):
+    """device=False keeps the e7 heuristics on the host even where JAX
+    has a GPU."""
+    monkeypatch.setattr(tpu_codec, "accelerator_available", lambda: True)
+    monkeypatch.setattr(heuristics, "_trial_jit", lambda: _boom)
+    monkeypatch.setattr(vf, "_tile_cost_jit", lambda: _boom)
+    data = codestream.encode_lossy(_image(64, 64), distance=1.0, effort=7,
+                                   device=False)
+    assert codestream.decode(data, device=False)[0].shape == (64, 64, 3)
 
 
 def test_subsampled_render_failure_propagates(monkeypatch):

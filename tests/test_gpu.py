@@ -5,15 +5,6 @@ import numpy as np
 import pytest
 
 
-@pytest.fixture
-def gpu():
-    import jax
-
-    if jax.default_backend() != "gpu":
-        pytest.skip("needs a GPU (JAX backend is "
-                    f"{jax.default_backend()!r})")
-
-
 @pytest.mark.gpu
 def test_large_images_default_to_the_device(gpu):
     from libjxl_tpu.api import tpu_codec

@@ -1,52 +1,34 @@
-"""Time the device stages behind two design choices of the GPU path.
+"""Attribute the device time of the served batched render to its stages.
 
-1. EPF share of the batched render. B=16 distinct 2048x2048 d1/e3
-   streams go through the served batched program (tpu_codec.
-   prepare_tpu_batch). Its steady-state calls are traced with
-   jax.profiler; each device op is attributed through the op_name of its
-   HLO instruction (EPF runs under the named scope "epf_pass"). Cross
-   check: the same batch rendered by the same program built with
-   epf_iters 0, 1, 2 and 3, timed on the host clock.
-2. Readback. The B=16 u8 pixel batch and one 2048x2048 encode `qimg`
-   fetched to the host with one np.asarray, against concurrent row-slice
-   fetches on a thread pool (per half image for the batch, 16 chunks for
-   qimg).
+B=16 distinct 2048x2048 d1/e3 streams go through the served batched
+program (tpu_codec.prepare_tpu_batch). Its steady-state calls are traced
+with jax.profiler; each device op is attributed through the op_name of
+its HLO instruction (EPF runs under the named scope "epf_pass"). EPF
+work that XLA fused into a neighbouring fusion is counted as other
+work, so the EPF share is a lower bound.
 
 Run on the GPU from the repo root:
 
     python tools/device_stage_times.py [--out chiprun_out/stage_times]
 
-Prints one summary line per measurement and writes summary.json and the
-trace under --out. Exits non-zero when JAX finds no GPU.
+Prints the card and one summary line, and writes summary.json, the
+compiled HLO and the trace under --out. Exits non-zero when JAX finds
+no GPU.
 """
 
 import argparse
-import concurrent.futures as cf
-import functools
 import glob
 import json
 import os
 import re
-import statistics
-import subprocess
 import sys
 import time
-
-import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 B = 16
-
-
-def _median_time(fn, reps=5):
-    ts = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        ts.append(time.perf_counter() - t0)
-    return statistics.median(ts), ts
+N = 2048
 
 
 def _key(name):
@@ -66,16 +48,13 @@ def _op_names(compiled_text):
 
 
 def _device_events(xplane_path):
-    """(op name, duration_ns) of every device op in the trace; falls
-    back to the host CPU plane when the trace has no GPU plane. Inside a
+    """(op name, duration_ns) of every GPU op in the trace. Inside a
     CUDA graph hlo_op reads "command_buffer" and the kernel's own name
     is the HLO fusion's."""
     from jax.profiler import ProfileData
 
     pd = ProfileData.from_file(xplane_path)
     planes = [p for p in pd.planes if p.name.startswith("/device:GPU")]
-    if not planes:
-        planes = [p for p in pd.planes if p.name == "/host:CPU"]
     events, line_names = [], set()
     for plane in planes:
         lines = list(plane.lines)
@@ -121,154 +100,36 @@ def epf_share_from_trace(prog, args, out_dir, reps=3):
             "trace_lines": lines}
 
 
-def epf_differential(streams):
-    """Host-clock render time of the batch at epf_iters 0..3 (same
-    program otherwise)."""
-    import jax
-    import jax.numpy as jnp
-
-    from libjxl_tpu.api import tpu_codec
-    from libjxl_tpu.api.codestream import parse_codestream_header
-    from libjxl_tpu.io.bits import BitReader
-    from libjxl_tpu.io.frame_header import FrameHeader
-    from libjxl_tpu.ops import pipeline as pl
-    from libjxl_tpu.vardct.frame import decode_vardct_frame
-
-    _, args = tpu_codec.prepare_tpu_batch(streams)
-    r = BitReader(streams[0])
-    fh = FrameHeader(parse_codestream_header(r))
-    fh.read(r)
-    cap = {}
-
-    def capture(state):
-        cap["s"] = state
-        state.restoration_done = True
-        state.device_output_done = True
-
-    decode_vardct_frame(r, fh, render_fn=capture, want_qimg=True)
-    st, lf = cap["s"], fh.loop_filter
-    h, w = st.fd.ysize_blocks * 8, st.fd.xsize_blocks * 8
-    cs = tuple(np.float32(v) for v in lf.epf_channel_scale)
-    args = jax.device_put(args)
-    out = {}
-    for k in range(4):
-        def one(qi, qfi, dci, xi, bi, gi, ispb, dmi, gki, sadi, k=k):
-            isp = jnp.repeat(jnp.repeat(ispb, 8, axis=0), 8, axis=1)
-            return pl.decode_render_image(
-                qi.astype(jnp.int32), qfi, dci, xi, bi, dmi, gi,
-                np.float32(st.x_dm_mult), np.float32(st.b_dm_mult), gki,
-                isp[:h, :w], sadi, cs, k, to_rgb="u8srgb",
-                pass0_sigma_scale=np.float32(lf.epf_pass0_sigma_scale),
-                pass2_sigma_scale=np.float32(lf.epf_pass2_sigma_scale))
-
-        prog = jax.jit(jax.vmap(
-            one, in_axes=(0, 0, 0, 0, 0, 0, 0, None, None, None)))
-        jax.block_until_ready(prog(*args))
-        med, _ = _median_time(lambda: jax.block_until_ready(prog(*args)))
-        out[f"epf{k}_ms"] = med * 1e3
-    return out
-
-
-def _fetch_halves(dev, pool):
-    h = dev.shape[1] // 2
-    parts = []
-    for j in range(dev.shape[0]):
-        parts += [dev[j, :h], dev[j, h:]]
-    got = list(pool.map(np.asarray, parts))
-    return [np.concatenate(got[2 * j:2 * j + 2]) for j in range(
-        dev.shape[0])]
-
-
-def _fetch_chunks(dev, pool, nchunks=16):
-    rows = dev.shape[1]
-    step = max(8, -(-rows // nchunks) // 8 * 8)
-    parts = [dev[:, y:y + step] for y in range(0, rows, step)]
-    return np.concatenate(list(pool.map(np.asarray, parts)), axis=1)
-
-
-def readback(make, fetch_alt, pool, reps=5):
-    """Median seconds of np.asarray vs fetch_alt on fresh device arrays
-    (a jax.Array caches its host copy, so every fetch gets a new one)."""
-    import jax
-
-    plain, alt = [], []
-    for _ in range(reps):
-        for label in ("plain", "alt"):
-            dev = jax.block_until_ready(make())
-            t0 = time.perf_counter()
-            got = np.asarray(dev) if label == "plain" else fetch_alt(dev,
-                                                                    pool)
-            (plain if label == "plain" else alt).append(
-                time.perf_counter() - t0)
-            del got
-    return statistics.median(plain), statistics.median(alt)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/stage_times")
-    ap.add_argument("--size", type=int, default=2048)
-    ap.add_argument("--allow-cpu", action="store_true",
-                    help="rehearse on the CPU backend (no device numbers)")
     args = ap.parse_args(argv)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-    ).stdout.strip() if not args.allow_cpu else "none"
+    from chip_smoke import card_lines, make_image
+
+    card = "; ".join(card_lines()) or "nvidia-smi: no card found"
     print(f"card: {card}", flush=True)
 
     import jax
 
-    from chip_smoke import make_image
     from libjxl_tpu.api import codestream, tpu_codec
 
-    if jax.default_backend() != "gpu" and not args.allow_cpu:
+    if jax.default_backend() != "gpu":
         print(f"FAIL: backend {jax.default_backend()}, not gpu")
         return 2
     dev = jax.devices()[0]
     os.makedirs(args.out, exist_ok=True)
-    n = args.size
-    streams = [codestream.encode_lossy(make_image(n, seed=500 + i),
+    streams = [codestream.encode_lossy(make_image(N, seed=500 + i),
                                        distance=1.0, effort=3, device=True)
                for i in range(B)]
     prog, pargs = tpu_codec.prepare_tpu_batch(streams)
     pargs = jax.device_put(pargs)
-    res = {"card": card, "device_kind": dev.device_kind, "size": n,
+    res = {"card": card, "device_kind": dev.device_kind, "size": N,
            "batch": B}
     res["trace"] = epf_share_from_trace(prog, pargs, args.out)
-    print(f"batched render B={B} {n}^2: device ops "
+    print(f"batched render B={B} {N}^2: device ops "
           f"{res['trace']['device_op_ms_per_call']:.3f} ms/call, EPF "
           f"{res['trace']['epf_ms_per_call']:.3f} ms/call (share "
           f"{res['trace']['epf_share']}) from the trace", flush=True)
-    res["differential"] = epf_differential(streams)
-    print("batched render by epf_iters (host clock, ms): "
-          + json.dumps(res["differential"]), flush=True)
-
-    with cf.ThreadPoolExecutor(max_workers=32) as pool:
-        plain, alt = readback(lambda: prog(*pargs), _fetch_halves, pool)
-    res["readback_batch_u8"] = {"np_asarray_s": plain,
-                                "concurrent_halves_32_threads_s": alt,
-                                "bytes": B * n * n * 3}
-    print(f"readback B={B} u8 batch ({B * n * n * 3} bytes): np.asarray "
-          f"{plain:.4f}s, 32-thread half-image slices {alt:.4f}s",
-          flush=True)
-
-    enc = tpu_codec._jitted()[0]
-    img = np.moveaxis(make_image(n, seed=9).astype(np.float32) / 255.0,
-                      -1, 0)
-    rgb = jax.device_put(img)
-    enc_call = functools.partial(
-        enc, rgb, np.ones((3, 8, 8), np.float32),
-        np.ones((3, 8, 8), np.float32), np.float32(1.0), np.float32(0),
-        np.float32(1.0), np.float32(1.0), adaptive=True, cfl=True, gab=True,
-        distance=0.7)
-    with cf.ThreadPoolExecutor(max_workers=22) as pool:
-        plain, alt = readback(lambda: enc_call()[0], _fetch_chunks, pool)
-    res["readback_qimg"] = {"np_asarray_s": plain,
-                            "concurrent_16_chunks_s": alt,
-                            "bytes": 3 * n * n * 4}
-    print(f"readback encode qimg ({3 * n * n * 4} bytes): np.asarray "
-          f"{plain:.4f}s, 16 concurrent row chunks {alt:.4f}s", flush=True)
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(json.dumps(res), flush=True)
